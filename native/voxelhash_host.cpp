@@ -2,7 +2,7 @@
 //
 // The reference keeps its host-side machinery in C++ (the chunk grid's CPU
 // half, CUDASceneRepChunkGrid.h:152-753; mLib's mesh merge + MeshIO used by
-// CUDAMarchingCubesHashSDF.cpp:88-143).  This library is the TPU build's
+// CUDAMarchingCubesHashSDF.cpp:88-143).  This library is this engine's
 // native equivalent: a voxel-block chunk store for HBM<->host streaming and
 // a vertex-welding PLY mesh writer, exposed through a C ABI consumed via
 // ctypes (no pybind11 in this environment).

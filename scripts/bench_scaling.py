@@ -5,14 +5,14 @@ Measures frames/s of the REAL distributed step
 program `dryrun_multichip` runs) at several mesh sizes and prints a
 scaling table for BASELINE.md.
 
-Virtual CPU devices share one host's cores, so absolute numbers are NOT
-TPU predictions; the curve's value is (a) proving the shard_map program
-scales its *work partition* (per-device active blocks drop ~1/D) and
-(b) catching partition-imbalance or replicated-work regressions.  ICI-true
-efficiency needs real multi-chip hardware (unavailable here; see
-BASELINE.md).
+Virtual CPU devices share one host's cores, so absolute numbers say
+nothing about GPUs; the curve's value is (a) proving the shard_map
+program scales its *work partition* (per-device active blocks drop ~1/D)
+and (b) catching partition-imbalance or replicated-work regressions.
+Efficiency on real cards needs the same program on four GPUs (not
+measured by this script).
 
-Run: /opt/venv/bin/python scripts/bench_scaling.py [--frames N]
+Run: python scripts/bench_scaling.py [--frames N]
 """
 
 import argparse

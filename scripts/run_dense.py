@@ -45,7 +45,9 @@ def main():
         jax.config.update("jax_platforms", "cpu")
     import dataclasses
     import jax.numpy as jnp
-    from voxelhashing_tpu import denseengine, densegrid, evaluation, meshing
+    from voxelhashing_tpu import (denseengine, densegrid, evaluation,
+                                  meshing, runtime)
+    runtime.enable_compile_cache()
 
     cfg = build_config(args.preset, streaming=False)
     cfg = dataclasses.replace(cfg, offline=False,

@@ -283,3 +283,20 @@ class TestNoveltyDrivenAlloc:
         s0 = set(k_no[k_no != int(INVALID_KEY)].tolist())
         s1 = set(k_nan[k_nan != int(INVALID_KEY)].tolist())
         assert s0 == s1
+
+
+def test_round_to_pool_matches_storage_rounding():
+    """blockmap.round_to_pool is exactly the pool's storage rounding, so
+    flags derived from it agree with the stored rows (a reduce_precision
+    that the GPU compiler cannot fold away)."""
+    import jax
+    x = jnp.asarray(np.random.default_rng(0).normal(
+        0.0, 0.02, 20000).astype(np.float32))
+    r = jax.jit(blockmap.round_to_pool)(x)
+    stored = x.astype(blockmap.POOL_DTYPE).astype(jnp.float32)
+    assert bool(jnp.all(r == stored))
+    assert r.dtype == jnp.float32
+    depth, color = wall_depth()
+    jaxpr = jax.make_jaxpr(lambda s, d, c: integrate.integrate(
+        s, d, c, jnp.eye(4), CAM, CFG))(blockmap.create(CFG), depth, color)
+    assert "reduce_precision" in str(jaxpr)

@@ -1,15 +1,14 @@
-"""voxelhashing_tpu: a TPU-native dense RGB-D SLAM engine.
+"""voxelhashing_tpu: a dense RGB-D SLAM engine in JAX.
 
-Brand-new JAX/XLA/Pallas implementation of the full VoxelHashing pipeline
-(Nießner et al. 2013; reference surveyed in SURVEY.md, component mapping in
-PARITY.md): sparse TSDF voxel map, per-frame depth integration, surface
-prediction, multi-resolution projective-ICP tracking, garbage collection,
-marching-tetrahedra meshing, HBM<->host streaming with a C++ chunk store,
-keyframe pose-graph loop closure, and multi-device map sharding — all
-re-designed for TPU (deterministic prefix-sum/scatter-claim structures
-instead of atomics, splat-based rendering instead of gather-bound marching,
-Pallas MXU kernels for the integration hot loop, collectives over a device
-mesh).
+JAX/XLA implementation of the full VoxelHashing pipeline (Nießner et al.
+2013; reference surveyed in SURVEY.md, component mapping in PARITY.md):
+sparse TSDF voxel map, per-frame depth integration, surface prediction,
+multi-resolution projective-ICP tracking, garbage collection,
+marching-tetrahedra meshing, device<->host streaming with a C++ chunk
+store, keyframe pose-graph loop closure, and multi-device map sharding —
+one jit-compiled device program per frame (deterministic
+prefix-sum/scatter-claim structures, splat-based rendering, collectives
+over a device mesh).
 """
 
 __version__ = "0.1.0"

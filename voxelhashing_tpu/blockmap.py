@@ -1,4 +1,4 @@
-"""Sparse TSDF voxel-block map: the TPU-native heart of the engine.
+"""Sparse TSDF voxel-block map: the heart of the engine.
 
 Re-design of the reference's spatially-hashed SDF volume (``HashData``,
 /root/reference/DepthSensingCUDA/Source/VoxelUtilHashSDF.h:93-824) for XLA:
@@ -32,15 +32,14 @@ from .geometry import INVALID_KEY
 # Table slot sentinels. INVALID_KEY marks an empty slot; TOMBSTONE marks a
 # deleted slot (lookups skip over it, inserts may claim it).
 TOMBSTONE = 0x7FFFFFFE  # Python int: a module-level jnp scalar would be a
-# captured device constant in every jit program (pathological on TPU runtimes)
+# captured device constant in every jit program
 
 # Pool storage dtype for sdf and weight rows. bf16 (a) matches the
 # reference's 8-byte voxel memory envelope (float sdf + uchar weight +
 # uchar3 color, VoxelUtilHashSDF.h:76-88 -> here bf16 sdf + bf16 weight +
-# packed u32 color = 8 B/voxel) and (b) halves the row gather/scatter HBM
-# traffic around integrate/GC/splat — the largest single frame cost after
-# the kernels themselves. Precision: |sdf| <= truncation (~0.02-0.06 m),
-# so bf16's 8-bit mantissa gives <= ~1e-4 m absolute quantisation (way
+# packed u32 color = 8 B/voxel) and (b) halves the row gather/scatter
+# traffic around integrate/GC/splat. Precision: |sdf| <= truncation
+# (~0.02-0.06 m), so bf16's 8-bit mantissa gives <= ~1e-4 m absolute quantisation (way
 # under the 4 mm voxel size); weights are integer-valued and capped at
 # 255 (s_SDFIntegrationWeightMax), exactly representable in bf16.  All
 # fusion/sampling MATH stays f32: consumers upcast immediately after the
@@ -48,13 +47,24 @@ TOMBSTONE = 0x7FFFFFFE  # Python int: a module-level jnp scalar would be a
 POOL_DTYPE = jnp.bfloat16
 
 
+def round_to_pool(x):
+    """f32 values rounded to POOL_DTYPE precision, kept in f32.
+
+    ``lax.reduce_precision`` survives XLA's excess-precision rewrites; a
+    ``.astype(POOL_DTYPE).astype(f32)`` pair may not (XLA:GPU can remove
+    it), which would let a value derived from it disagree with the
+    value actually stored."""
+    fi = jnp.finfo(POOL_DTYPE)
+    return jax.lax.reduce_precision(x, exponent_bits=fi.nexp,
+                                    mantissa_bits=fi.nmant)
+
+
 class MapState(NamedTuple):
     """Device-resident sparse TSDF map (a pytree of fixed-shape arrays).
 
-    TPU layout notes: every per-voxel array is [N, 512] with the 512-voxel
-    block as the minor axis (one (8,128)/(8,64) VMEM tile per block); colors
-    are bit-packed 0x00RRGGBB into one uint32 so a voxel fetch is a single
-    lane gather (an [N,512,3] u8 layout would waste 125/128 lanes on TPU).
+    Layout: every per-voxel array is [N, 512] with the 512-voxel block as
+    the minor axis (one contiguous row per block); colors are bit-packed
+    0x00RRGGBB into one uint32 so a voxel fetch is a single gather.
     """
 
     table_key: jax.Array   # int32[H]   key at slot (INVALID_KEY / TOMBSTONE)
@@ -73,8 +83,8 @@ class MapState(NamedTuple):
     # VoxelUtilHashSDF.h:813-823, as a deterministic prefix-sum stack):
     # free_stack[0:n_free] holds the free pool slot indices; allocation
     # pops from the top (free_stack[n_free-1-rank]), deletion pushes at
-    # n_free. Maintained incrementally — rebuilding the free list per
-    # frame costs ~3.5 ms at 64K blocks (cumsum+scatter) on a v5e.
+    # n_free. Maintained incrementally instead of rebuilding the free list
+    # (a pool-wide cumsum+scatter) every frame.
     free_stack: jax.Array    # int32[N]
     n_free: jax.Array        # int32[]
     n_tombstones: jax.Array  # int32[]  tombstone count (rehash trigger)
@@ -82,13 +92,10 @@ class MapState(NamedTuple):
     # < dense_upto. The free stack is initialised reversed so fresh pops
     # hand out the lowest slots (and deletes push holes that get reused
     # LIFO before the watermark moves), keeping the watermark ~= the
-    # allocated count. While the watermark fits the active cap, the
-    # integrate path reads pool rows [0, watermark) as a static slice and
-    # writes them back with one update instead of paying row
-    # gather/scatter passes (~30% of HBM peak on this chip); holes inside
-    # the slice carry INVALID keys and self-mask in the kernel.
-    # compact_pool() resets the watermark to the allocated count when
-    # fragmentation drives it up.
+    # allocated count. While the watermark fits the lower half of the
+    # pool, compactify and streaming's select_stream_out scan only that
+    # half. compact_pool() resets the watermark to the allocated count
+    # when fragmentation drives it up.
     dense_upto: jax.Array
 
 
@@ -163,12 +170,12 @@ def lookup(state: MapState, keys, cfg: MapConfig):
     """
     keys_in = jnp.asarray(keys, jnp.int32)
     shape = keys_in.shape
-    k = keys_in.reshape(-1)   # flat [K]: minor-dim-large TPU layout
+    k = keys_in.reshape(-1)   # flat [K]
     found = jnp.zeros(k.shape, bool)
     dead = k == INVALID_KEY   # finished probing (found, or chain ended)
     idx = jnp.zeros(k.shape, jnp.int32)
-    # Statically unrolled probe rounds: pure dataflow, no dynamic control
-    # flow (data-dependent while_loops measurably degrade TPU dispatch).
+    # Statically unrolled probe rounds: pure dataflow, no data-dependent
+    # while_loop.
     for r in range(cfg.max_probes):
         slots = _probe_slot(k, r, cfg.table_size)
         tk = state.table_key[slots]
@@ -504,7 +511,7 @@ def gather_voxels(state: MapState, voxel_coords, cfg: MapConfig,
 
     The reference's ``getVoxel(world)`` hash lookup per voxel
     (VoxelUtilHashSDF.h:364-377). Unallocated -> weight 0.  All work happens
-    on flat 1-D views (TPU lane efficiency); color unpacks from u32.
+    on flat 1-D views; color unpacks from u32.
     """
     vc = jnp.asarray(voxel_coords, jnp.int32)
     shape = vc.shape[:-1]
@@ -613,9 +620,9 @@ def delete_blocks(state: MapState, pool_indices, delete_mask,
                           free_stack=free_stack,
                           n_free=state.n_free + n_deleted,
                           n_tombstones=state.n_tombstones + n_deleted)
-    # (row watermark unchanged: deletes create holes BELOW it, which the
-    # integrate slice path masks via their INVALID keys and the LIFO
-    # stack reuses before the watermark moves)
+    # (row watermark unchanged: deletes create holes BELOW it, which
+    # carry INVALID keys and which the LIFO stack reuses before the
+    # watermark moves)
 
 
 def rehash(state: MapState, cfg: MapConfig) -> MapState:
@@ -672,14 +679,13 @@ def maybe_rehash(state: MapState, cfg: MapConfig) -> MapState:
 
 def compact_pool(state: MapState, cfg: MapConfig) -> MapState:
     """Permute the allocated rows to the pool prefix [0, n), rebuild the
-    table, and reset the free stack — restoring ``dense_upto`` so the
-    integrate path can stream its rows as a slice again.
+    table, and reset the free stack — restoring ``dense_upto`` so
+    compactify and select_stream_out take their half-width tier again.
 
     The reference never compacts its heap (allocBlock takes whatever slot
-    ``consumeHeap`` returns, VoxelUtilHashSDF.h:518-529); here density is
-    a measured TPU win (row gathers run at ~30% of HBM peak, a contiguous
-    stream at full rate). Cost: one full-pool permutation — run it on the
-    rehash cadence, not per frame (:func:`maybe_maintain`).
+    ``consumeHeap`` returns, VoxelUtilHashSDF.h:518-529). Cost: one
+    full-pool permutation — run it on the rehash cadence, not per frame
+    (:func:`maybe_maintain`).
     """
     n_pool = cfg.num_blocks
     allocated = state.block_key != INVALID_KEY
@@ -734,7 +740,7 @@ def maybe_maintain(state: MapState, cfg: MapConfig, frame_idx) -> MapState:
     """Periodic map maintenance (jit-safe): compact+rebuild when
     tombstones pile up (the rehash trigger) OR hole fragmentation has
     pushed the row watermark well past the allocated count (the
-    integrate slice path's span tracks the watermark)."""
+    compactify/select tiers track the watermark)."""
     n_alloc = jnp.int32(cfg.num_blocks) - state.n_free
     need = (state.n_tombstones > cfg.table_size // 8) | (
         (state.dense_upto - n_alloc > cfg.num_blocks // 16)
@@ -816,7 +822,7 @@ def check_invariants(state: MapState, cfg: MapConfig) -> dict:
                  else 1 + abs(n_free - len(free_set)))
 
     # 8. Row-watermark claim: every allocated row index is < dense_upto
-    #    (the integrate slice path reads only [0, dense_upto)).
+    #    (the compactify/select tiers scan only [0, dense_upto)).
     du = int(state.dense_upto)
     dense_bad = int(np.any(block_key[du:] != inv_key))
 

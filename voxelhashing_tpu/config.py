@@ -1,4 +1,4 @@
-"""Configuration tree for the TPU-native voxel-hashing SLAM engine.
+"""Configuration tree for the voxel-hashing SLAM engine.
 
 Mirrors the semantics of the reference's X-macro config singletons
 (``GlobalAppState.h:28-131``, ``GlobalCameraTrackingState.h:13-25`` in
@@ -16,8 +16,8 @@ import re
 from typing import Optional, Tuple
 
 # Fixed structural constants (the reference pound-defines these:
-# VoxelUtilHashSDF.h:40-41). Block size stays 8 -- 512 voxels per block maps
-# onto one (8, 64) f32 VMEM tile on TPU.
+# VoxelUtilHashSDF.h:40-41). Block size stays 8 -- 512 voxels per block,
+# one contiguous pool row.
 SDF_BLOCK_SIZE = 8
 VOXELS_PER_BLOCK = SDF_BLOCK_SIZE ** 3
 
@@ -64,8 +64,8 @@ class MapConfig:
     """Sparse TSDF voxel-block map parameters.
 
     Mirrors ``HashParams`` (CUDAHashParams.h:11-39) and the hash/SDF block of
-    ``zParametersDefault.txt:33-41``, reshaped for the sorted/hashed
-    block-sparse TPU layout.
+    ``zParametersDefault.txt:33-41``, reshaped for the open-addressing
+    block-sparse layout.
     """
 
     voxel_size: float = 0.004        # s_SDFVoxelSize
@@ -87,8 +87,8 @@ class MapConfig:
     # Probe budget for the contended INSERT loop only (each unrolled round
     # costs ~7 scatter/gather passes over the insert list; lookups keep the
     # full max_probes chain). Keys losing every round drop-and-retry.
-    # 3 rounds reach identical steady-state coverage as 4 at <=25% table
-    # load (round-4 sweep: same block count, ~1 fps cheaper).
+    # 3 rounds reach the same steady-state block count as 4 at <=25%
+    # table load.
     insert_probes: int = 3
     # Active-set cap: max blocks in camera frustum handled per frame
     # (the reference reads this count back per frame; we keep it static).
@@ -133,11 +133,10 @@ class MapConfig:
     # (bucket-lock drops, CUDASceneRepHashSDF.cu allocBlock). The engine
     # uses tiles ONLINE only; offline fixpoint replay stays per-pixel
     # exact. Tiling shrinks the candidate stream (what the allocator's
-    # staging scatters and probe passes scale with) by ~tile^2/fold;
-    # tile=4 measured +1.9 fps over tile=2 at the bench operating point
-    # with the stress-suite ATE unchanged (phase rotation covers a 4x4
-    # tile's mid-depth bands within 16 frames; novelty-alloc already
-    # drops the already-mapped pixels). NOTE: falls back to per-pixel
+    # staging scatters and probe passes scale with) by ~tile^2/fold; the
+    # stress-suite ATE is the same at tile=4 as at tile=2 (phase rotation
+    # covers a 4x4 tile's mid-depth bands within 16 frames; novelty-alloc
+    # already drops the already-mapped pixels). NOTE: falls back to per-pixel
     # when the image dims aren't divisible by the tile. 1 = per-pixel.
     alloc_tile: int = 4
     # Joint fold cap for the two tile rays (each ray's band crosses <= ~4
@@ -157,22 +156,20 @@ class MapConfig:
     # every frame; starvation every `gc_starve_interval` frames.
     gc_starve_interval: int = 15  # s_garbageCollectionStarve
     # Pool compaction cadence when deletes broke the dense prefix
-    # (blockmap.maybe_maintain): restores slice-path integrate without
-    # thrashing on churny scenes.
+    # (blockmap.maybe_maintain): restores the half-width compactify tier
+    # without thrashing on churny scenes.
     maintain_interval: int = 32
     gc_enabled: bool = True
     # GC free-pass list bound: culled blocks are compacted to this many
     # entries before the delete pass (its table re-probe loop and row
-    # scatters then run over ~1K rows instead of the full active list —
-    # measured 4-5 ms/frame at the bench operating point). Overflow culls
-    # re-flag from fresh stats next frame (drop-and-retry, the same
-    # bounded-work semantics as allocation).
+    # scatters then run over ~1K rows instead of the full active list).
+    # Overflow culls re-flag from fresh stats next frame (drop-and-retry,
+    # the same bounded-work semantics as allocation).
     gc_delete_cap: int = 1024
     # Bilinear (validity-weighted) color sampling during integration — the
     # reference ships this helper but calls it commented-out
     # (bilinearFilterColor, CUDASceneRepHashSDF.cu:379-410, call site :440);
-    # both default to nearest. Enabling it routes integration through the
-    # XLA path (the Pallas kernel gathers nearest by design).
+    # both default to nearest.
     bilinear_color: bool = False
     # Offline replay loops allocation toward fixpoint with this many rounds
     # (the reference iterates until no new allocs, CUDASceneRepHashSDF.h:
@@ -258,8 +255,8 @@ class RaycastConfig:
     thres_sample_dist_factor: float = 50.5  # s_SDFRayThresSampleDistFactor
     thres_dist_factor: float = 50.0      # s_SDFRayThresDistFactor
     use_gradients: bool = False          # s_SDFUseGradients
-    # Renderer: "splat" (TPU-native voxel-splat surface prediction; no
-    # per-sample map gathers) or "march" (reference-style trilinear ray
+    # Renderer: "splat" (voxel-splat surface prediction; no per-sample map
+    # gathers) or "march" (reference-style trilinear ray
     # march, batched). See raycast.py for the splat derivation.
     mode: str = "splat"
     # splat mode: rounds of 3x3 hole-fill dilation for close-range pixels
@@ -340,6 +337,22 @@ class EngineConfig:
     # (s_binaryDumpSensorUseTrajectoryOnlyInit, zParametersDefault.txt:50-51).
     use_trajectory: bool = False
     use_trajectory_only_init: bool = False
+
+
+def realtime_config(num_blocks: int = 1 << 16,
+                    table_size: int = 1 << 18) -> EngineConfig:
+    """The reference's real-time operating point (zParametersDefault.txt:
+    9-29): 320x240 processing, 4 mm voxels, truncation 0.02 m + 0.01 m/m,
+    online allocation, GC and free ICP tracking. ``num_blocks`` defaults
+    to a 64K-block pool; the reference's own default capacity is
+    ``num_blocks=1 << 20, table_size=1 << 21`` (zParametersDefault.txt:
+    34-36)."""
+    return EngineConfig(
+        camera=CameraConfig(),
+        map=MapConfig(voxel_size=0.004, truncation=0.02,
+                      truncation_scale=0.01, num_blocks=num_blocks,
+                      table_size=table_size, max_active_blocks=1 << 15),
+        offline=False)
 
 
 _KV_RE = re.compile(

@@ -1,6 +1,6 @@
 """Dense TSDF voxel grid: the pre-hashing scene representation.
 
-TPU-native equivalent of the original DX11 app's dense voxel-grid baseline,
+JAX equivalent of the original DX11 app's dense voxel-grid baseline,
 which the CUDA app dropped when the sparse hash landed (SURVEY.md §2.9):
 
 * Grid state/extent: /root/reference/DepthSensing/Source/DX11VoxelGrid.h:6-99
@@ -163,12 +163,10 @@ def integrate(grid: DenseGrid, cfg: DenseGridConfig, depth, color, pose,
 def _pack_quads(flat, nx: int):
     """Neighbor-packed table: row i = (v[i], v[i+1], v[i+nx], v[i+nx+1]).
 
-    TPU gather cost scales with the INDEX count, not the row width
-    (BASELINE.md layout rules), so packing a trilinear cell's same-z
-    corners into one 4-wide row turns the 8 corner gathers into 2 row
-    gathers. Rows near the flat end wrap — harmless, the sampler's
-    in-bounds test already excludes cells whose +1 neighbours leave the
-    grid."""
+    Packing a trilinear cell's same-z corners into one 4-wide row turns
+    the 8 corner gathers into 2 row gathers. Rows near the flat end
+    wrap — harmless, the sampler's in-bounds test already excludes cells
+    whose +1 neighbours leave the grid."""
     s1 = jnp.concatenate([flat[1:], flat[:1]])
     sn = jnp.concatenate([flat[nx:], flat[:nx]])
     sn1 = jnp.concatenate([flat[nx + 1:], flat[:nx + 1]])

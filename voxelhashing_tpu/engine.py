@@ -154,61 +154,19 @@ def _integrate_frame(state: MapState, frame: FrameInputs, pose,
         active_idx, n_active, overflow = blockmap.compactify(state, view,
                                                              cam, mp)
     active_mask = jnp.arange(active_idx.shape[0]) < n_active
-    gc_stats = None
-    gc_rows = (active_idx, active_mask)   # rows the cached gc stats cover
-    if jax.default_backend() == "tpu" and not mp.bilinear_color:
-        from .ops.pallas_integrate import (integrate_pallas,
-                                           integrate_pallas_dense)
-        cap = active_idx.shape[0]
-
-        def dense_path(s):
-            # Row watermark fits the cap (blockmap.dense_upto): old rows
-            # stream in as a static slice, fused rows write back with one
-            # update — no row gather/scatter (those run at ~30% of HBM
-            # peak). Frustum culling is implicit (off-view blocks
-            # self-mask); holes carry INVALID keys and self-mask too.
-            return integrate_pallas_dense(
-                s, frame.depth, frame.color, pose, cam, mp,
-                jnp.minimum(s.dense_upto, cap), cap, return_gc_stats=True)
-
-        def sparse_path(s):
-            return integrate_pallas(
-                s, frame.depth, frame.color, pose, cam, mp, active_idx,
-                n_active, return_gc_stats=True)
-
-        dense_ok = state.dense_upto <= cap
-        state, gc_stats = jax.lax.cond(dense_ok, dense_path, sparse_path,
-                                       state)
-        # cached stats alignment: dense -> pool rows [0, cap); sparse ->
-        # the active list. Pick the matching row set for gc_only below.
-        dense_rows = (jnp.arange(cap, dtype=jnp.int32),
-                      jnp.arange(cap) < state.dense_upto)
-        gc_rows = jax.tree_util.tree_map(
-            lambda a, b: jnp.where(dense_ok, a, b), dense_rows,
-            (active_idx.astype(jnp.int32), active_mask))
-    else:
-        state = integ.integrate(state, frame.depth, frame.color, pose, cam,
-                                mp, active_idx=active_idx,
-                                active_mask=active_mask)
+    state = integ.integrate(state, frame.depth, frame.color, pose, cam,
+                            mp, active_idx=active_idx,
+                            active_mask=active_mask)
     if mp.gc_enabled:
         # Reference cadence (CUDASceneRepHashSDF.h:64-83,327-333): starve
         # every `gc_starve_interval` frames, identify+free EVERY frame.
-        # Non-starve frames reuse the integrate kernel's per-block stats
-        # (rows unchanged since); starve frames invalidate them and take
-        # the row-reading path. Starvation is FRUSTUM-scoped in both
-        # integrate modes (off-view geometry must not decay).
+        # Starvation is FRUSTUM-scoped (off-view geometry must not decay).
         is_starve = (frame_idx > 0) \
             & (jnp.mod(frame_idx, mp.gc_starve_interval) == 0)
-
-        def starve_then_gc(s):
-            s = integ.starve(s, active_idx, active_mask)
-            return integ.garbage_collect(s, active_idx, active_mask, mp)
-
-        def gc_only(s):
-            return integ.garbage_collect(s, gc_rows[0], gc_rows[1], mp,
-                                         cached_stats=gc_stats)
-
-        state = jax.lax.cond(is_starve, starve_then_gc, gc_only, state)
+        state = jax.lax.cond(
+            is_starve, lambda s: integ.starve(s, active_idx, active_mask),
+            lambda s: s, state)
+        state = integ.garbage_collect(state, active_idx, active_mask, mp)
     state = blockmap.maybe_maintain(state, mp, frame_idx)
     return state, active_idx, active_mask, n_active, overflow, alloc_missed
 
@@ -308,9 +266,9 @@ def step(state: EngineState, depth_raw, color_raw, cfg: EngineConfig,
         tr.valid, do_integrate, skip_integrate, state.map)
 
     diag = FrameDiagnostics(
-        # pool occupancy from the tracked free-stack counter (a full
-        # block_key reduction per frame costs ~0.5 ms; stats() remains
-        # for the histogram/debug paths)
+        # pool occupancy from the tracked free-stack counter (no per-frame
+        # block_key reduction; stats() remains for the histogram/debug
+        # paths)
         n_allocated_blocks=jnp.int32(cfg.map.num_blocks) - new_map.n_free,
         n_active_blocks=n_act,
         active_overflow=overflow,

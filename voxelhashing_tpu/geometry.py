@@ -23,6 +23,10 @@ import jax.numpy as jnp
 
 from .config import SDF_BLOCK_SIZE, CameraConfig
 
+# Rigid transforms are pinned to full f32: at default precision a GPU may
+# run an f32 product in TF32 (10 mantissa bits, ~1 mm at 2 m).
+_HI = jax.lax.Precision.HIGHEST
+
 # ---------------------------------------------------------------------------
 # Voxel / block coordinate transforms
 # ---------------------------------------------------------------------------
@@ -99,8 +103,8 @@ def delinearize_voxel_index(idx):
 # the reference's int3 HashEntry.pos field; the streaming layer owns space
 # beyond this extent.
 
-INVALID_KEY = 0x7FFFFFFF  # Python int, NOT a jnp scalar: module-level device
-# arrays captured into jit programs cause severe dispatch degradation on TPU
+INVALID_KEY = 0x7FFFFFFF  # Python int, NOT a jnp scalar: a module-level
+# device array would be captured as a constant into every jit program
 
 
 def pack_block_key(block, world_blocks: int):
@@ -216,18 +220,18 @@ def depth_to_points(depth, cam: CameraConfig):
 
 def transform_points(mat4, pts):
     """Apply a 4x4 rigid transform to points [...,3]."""
-    return pts @ mat4[:3, :3].T + mat4[:3, 3]
+    return jnp.matmul(pts, mat4[:3, :3].T, precision=_HI) + mat4[:3, 3]
 
 
 def rotate_vectors(mat4, vecs):
     """Apply only the rotation part to vectors [...,3]."""
-    return vecs @ mat4[:3, :3].T
+    return jnp.matmul(vecs, mat4[:3, :3].T, precision=_HI)
 
 
 def invert_rigid(mat4):
     """Inverse of a rigid 4x4 transform (R^T, -R^T t)."""
     r_t = mat4[:3, :3].T
-    t = -r_t @ mat4[:3, 3]
+    t = -jnp.matmul(r_t, mat4[:3, 3], precision=_HI)
     out = jnp.eye(4, dtype=mat4.dtype)
     out = out.at[:3, :3].set(r_t)
     out = out.at[:3, 3].set(t)
@@ -243,7 +247,7 @@ def euler_zyx_to_matrix(angles):
     rz = jnp.array([[cz, -sz, 0.0], [sz, cz, 0.0], [0.0, 0.0, 1.0]])
     ry = jnp.array([[cy, 0.0, sy], [0.0, 1.0, 0.0], [-sy, 0.0, cy]])
     rx = jnp.array([[1.0, 0.0, 0.0], [0.0, cx, -sx], [0.0, sx, cx]])
-    return rz @ ry @ rx
+    return jnp.matmul(jnp.matmul(rz, ry, precision=_HI), rx, precision=_HI)
 
 
 def pose_from_x(x):

@@ -1,6 +1,6 @@
 """Depth-map integration: block allocation, TSDF fusion, garbage collection.
 
-TPU-native re-derivation of the integrate pipeline of
+JAX re-derivation of the integrate pipeline of
 ``CUDASceneRepHashSDF`` (/root/reference/DepthSensingCUDA/Source/
 CUDASceneRepHashSDF.h:64-83 ``integrate()`` = set pose -> alloc ->
 compactify -> integrate -> garbageCollect):
@@ -234,8 +234,8 @@ def alloc_candidates(depth, pose, cam: CameraConfig, cfg: MapConfig,
             hi = jnp.where(wrap, -inf, hi)
         else:
             py = px = jnp.int32(0)
-        # Pool with strided slices (fast on TPU) instead of a [ht,t,wt,t]
-        # reshape-reduce (minor-axis split = lane shuffles).
+        # Pool with strided slices instead of a [ht,t,wt,t]
+        # reshape-reduce.
         for ax, sl in ((1, lambda a, o: a[:, o::tile]),
                        (0, lambda a, o: a[o::tile, :])):
             lo = jnp.min(jnp.stack([sl(lo, o) for o in range(tile)]), axis=0)
@@ -273,7 +273,7 @@ def alloc_candidates(depth, pose, cam: CameraConfig, cfg: MapConfig,
 
     d = depth.reshape(-1)
     valid = jnp.ones(d.shape, bool)
-    # All per-pixel state is SoA ([P] per coordinate) for TPU lane packing.
+    # All per-pixel state is SoA ([P] per coordinate).
     u, v = geom.pixel_grid(w, h)
     u, v = u.reshape(-1), v.reshape(-1)
     xn = (u - cam.cx) / cam.fx            # normalised camera ray
@@ -316,8 +316,8 @@ def _local_voxel_offsets():
 def _pack_frame_color(color):
     """[h,w,3] f32 in [0,1] -> [h,w] u32 packed 0x00RRGGBB (x255).
 
-    One pack per frame makes every downstream color fetch a single-lane
-    u32 gather (TPU-friendly) instead of a 3-wide minor-dim gather.
+    One pack per frame makes every downstream color fetch a single u32
+    gather instead of a 3-wide minor-dim gather.
     """
     c = jnp.where(jnp.isfinite(color), color, -1.0) * 255.0
     valid = jnp.all(color >= 0.0, axis=-1) & jnp.all(
@@ -350,8 +350,8 @@ def integrate(state: MapState, depth, color, pose, cam: CameraConfig,
         active_idx, _, _ = blockmap.compactify(state, view, cam, cfg)
         active_mask = state.block_key[active_idx] != INVALID_KEY
 
-    # All hot math below is structure-of-arrays [M,512] (512 = minor axis,
-    # one VMEM tile per block): [M,512,3] AoS would waste 125/128 TPU lanes.
+    # All hot math below is structure-of-arrays [M,512] (512 = minor axis):
+    # contiguous per-component rows instead of a strided [M,512,3] AoS.
     blocks = geom.unpack_block_key(state.block_key[active_idx],
                                    cfg.world_blocks)         # [M,3]
     base_voxel = geom.block_to_voxel(blocks)                 # [M,3]
@@ -374,8 +374,7 @@ def integrate(state: MapState, depth, color, pose, cam: CameraConfig,
                  & (vi >= 0) & (vi < cam.height) & (pz > 0.0))
     ui = jnp.clip(ui, 0, cam.width - 1)
     vi = jnp.clip(vi, 0, cam.height - 1)
-    pix = vi * cam.width + ui      # single linearised gather index (a 2-D
-    # [vi,ui] gather costs ~2x on TPU)
+    pix = vi * cam.width + ui      # single linearised gather index
 
     d = depth.reshape(-1)[pix]                               # [M,512]
     d_valid = jnp.isfinite(d) & (d > 0.0)
@@ -424,19 +423,21 @@ def integrate(state: MapState, depth, color, pose, cam: CameraConfig,
     # carried out per channel on the packed u32s.
     fused_c = _blend_packed(old_c, c_new)
 
-    # downcast at the store (unchanged rows round-trip bf16->f32->bf16
-    # exactly); surface flags / GC stats are computed from the ROUNDED
-    # values so they agree bit-for-bit with what readers see in the pool
-    out_sdf = jnp.where(update, fused_sdf, old_sdf).astype(
-        blockmap.POOL_DTYPE)
-    out_w = jnp.where(update, fused_w, old_w).astype(blockmap.POOL_DTYPE)
+    # round to the pool's precision (unchanged rows round-trip exactly);
+    # surface flags are computed from the ROUNDED values so they agree
+    # bit-for-bit with what readers see in the pool. reduce_precision,
+    # not a bf16->f32 convert pair: XLA:GPU may drop such a pair
+    # (excess precision) and flag from the unrounded f32 value.
+    out_sdf = blockmap.round_to_pool(jnp.where(update, fused_sdf, old_sdf))
+    out_w = blockmap.round_to_pool(jnp.where(update, fused_w, old_w))
     out_c = jnp.where(update, fused_c, old_c)
 
     # persistent surface flags (read by the splat cull): recomputed for
     # every integrated block from its fused (stored-precision) rows
-    out_surf = jnp.any((out_w.astype(jnp.float32) > 0.0)
-                       & (jnp.abs(out_sdf.astype(jnp.float32))
-                          < cfg.voxel_size), axis=1)
+    out_surf = jnp.any((out_w > 0.0) & (jnp.abs(out_sdf) < cfg.voxel_size),
+                       axis=1)
+    out_sdf = out_sdf.astype(blockmap.POOL_DTYPE)
+    out_w = out_w.astype(blockmap.POOL_DTYPE)
 
     safe_idx = jnp.where(active_mask, active_idx, cfg.num_blocks)
     return state._replace(
@@ -530,7 +531,7 @@ def starve(state: MapState, active_idx, active_mask) -> MapState:
 
 
 def garbage_collect(state: MapState, active_idx, active_mask,
-                    cfg: MapConfig, cached_stats=None) -> MapState:
+                    cfg: MapConfig) -> MapState:
     """Cull active blocks that are all-far or all-starved.
 
     garbageCollectIdentifyKernel (:543-590): flag a block when
@@ -538,30 +539,21 @@ def garbage_collect(state: MapState, active_idx, active_mask,
     (min/max over the 512 voxels, ignoring zero-weight voxels for the sdf
     min, which the reference achieves by giving them PINF). Flagged blocks
     are freed and zeroed (garbageCollectFreeKernel :608-628).
-
-    ``cached_stats``: optional (min_abs_sdf [G], max_weight [G]) already
-    computed over the CURRENT rows (the integrate kernel emits them while
-    rows are in registers) — skips this function's 134 MB row re-read.
-    The caller must not pass stale stats (e.g. after starvation).
     """
-    if cached_stats is not None:
-        min_sdf, max_w = cached_stats
-    else:
-        sdf = state.sdf[active_idx].astype(jnp.float32)
-        w = state.weight[active_idx].astype(jnp.float32)
-        inf = jnp.float32(jnp.inf)
-        abs_sdf = jnp.where(w > 0.0, jnp.abs(sdf), inf)
-        min_sdf = jnp.min(abs_sdf, axis=-1)
-        max_w = jnp.max(w, axis=-1)
+    sdf = state.sdf[active_idx].astype(jnp.float32)
+    w = state.weight[active_idx].astype(jnp.float32)
+    inf = jnp.float32(jnp.inf)
+    abs_sdf = jnp.where(w > 0.0, jnp.abs(sdf), inf)
+    min_sdf = jnp.min(abs_sdf, axis=-1)
+    max_w = jnp.max(w, axis=-1)
     t = cfg.truncation_at(cfg.max_integration_distance)
     cull = active_mask & ((min_sdf >= t) | (max_w == 0.0))
     # Compact the (few) culled blocks to a bounded short list BEFORE the
     # free pass: delete_blocks pays a table re-probe loop + row-zeroing
     # scatters over its whole input list, and steady state culls tens of
-    # blocks out of tens of thousands of active rows (measured 4-5
-    # ms/frame of pure list overhead at the bench operating point).
-    # Overflow past gc_delete_cap re-flags from fresh stats next frame —
-    # the same drop-and-retry bound as allocation staging.
+    # blocks out of tens of thousands of active rows. Overflow past
+    # gc_delete_cap re-flags from fresh stats next frame — the same
+    # drop-and-retry bound as allocation staging.
     dcap = min(cfg.gc_delete_cap, active_idx.shape[0])
     rank = jnp.cumsum(cull.astype(jnp.int32)) - 1
     keep = cull & (rank < dcap)

@@ -243,6 +243,20 @@ def clutter_scene() -> Scene:
     )
 
 
+def sphere_cluster_scene() -> Scene:
+    """Five spheres before wall+floor: keeps the 6-DoF ICP system
+    well-conditioned over the whole trajectory (a bare wall degenerates
+    the yaw/translation nullspace exactly as it would for the reference
+    tracker). The benchmark's scene."""
+    return Scene(spheres=(
+        Sphere(center=(0.0, 0.2, 1.8), radius=0.3),
+        Sphere(center=(-0.5, -0.2, 2.0), radius=0.25, color=(0.2, 0.5, 0.8)),
+        Sphere(center=(0.6, 0.1, 1.5), radius=0.2, color=(0.3, 0.7, 0.3)),
+        Sphere(center=(0.3, -0.4, 2.2), radius=0.28, color=(0.7, 0.7, 0.2)),
+        Sphere(center=(-0.3, 0.45, 1.4), radius=0.18, color=(0.6, 0.3, 0.7)),
+    ))
+
+
 def wall_only_scene(z: float = 2.0) -> Scene:
     """Textureless-wall degeneracy scene: a single fronto-parallel plane.
     Point-to-plane ICP on it constrains only (z, pitch, yaw); the 6x6

@@ -7,7 +7,7 @@ extracts per-voxel surface triangles with edge interpolation, color
 interpolation, truncation guards, and a static triangle budget
 (s_marchingCubesMaxNumTriangles).
 
-Design notes (TPU-native, intentionally NOT the reference algorithm):
+Design notes (intentionally NOT the reference algorithm):
 * Triangulation is **marching tetrahedra** over the 6-tetrahedron cube
   decomposition rather than classic 256-case marching cubes — every case
   reduces to 1-2 triangles derivable from first principles (no borrowed

@@ -1,7 +1,7 @@
 """ctypes bindings for the native host runtime (native/voxelhash_host.cpp).
 
 The reference's host-side machinery is C++ (chunk grid CPU half, mLib mesh
-merge); this module binds the TPU build's native equivalents.  The library
+merge); this module binds this engine's native equivalents.  The library
 is compiled on demand with g++ (no pybind11 in this environment); every
 entry point has a pure-Python fallback so the package works without a
 toolchain.

@@ -255,7 +255,7 @@ def remap_depth_to_color(depth, depth_intr, color_intr, color_width: int,
     pipeline in color space (``RenderDepthMap``,
     /root/reference/DepthSensingCUDA/Source/CUDARGBDSensor.cpp:200-217,
     with ``s_remappingDepthDiscontinuityThresOffset/Lin`` killing
-    stretched triangles at depth edges). TPU-side rasterization is not
+    stretched triangles at depth edges). Device-side rasterization is not
     worth a kernel for an IO-path fixup, so this re-derivation:
 
     * drops depth pixels whose 3x3 neighborhood spread exceeds
@@ -270,7 +270,7 @@ def remap_depth_to_color(depth, depth_intr, color_intr, color_width: int,
     Returns f32[color_height, color_width] metres, NaN where nothing maps.
     Downstream, an unmapped pixel behaves exactly like the reference's
     MINF: integrate requires BOTH depth and color valid
-    (CUDASceneRepHashSDF.cu:443; merged validity in pallas_integrate).
+    (CUDASceneRepHashSDF.cu:443; integrate.integrate's update mask).
     """
     import numpy as np
 

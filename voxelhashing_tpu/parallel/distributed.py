@@ -2,12 +2,12 @@
 
 The reference is a single-process, single-GPU application (SURVEY.md
 §2.10: "Distributed comm backend: none"); this module is the beyond-
-reference multi-host path the TPU build adds.  It owns exactly three
+reference multi-host path this engine adds.  It owns exactly three
 responsibilities, all host-side:
 
 * **Process-group bring-up** — :func:`initialize` wraps
   ``jax.distributed.initialize`` (coordination service + Gloo collectives
-  on the CPU backend, ICI/DCN on real slices).  After it returns,
+  on the CPU backend, NCCL over NVLink/the network on GPUs).  After it returns,
   ``jax.devices()`` spans every process and the *same*
   :func:`voxelhashing_tpu.parallel.sharded.make_sharded_step` program
   runs SPMD across hosts — the compute path does not change.
@@ -61,9 +61,13 @@ def initialize(coordinator_address: str, num_processes: int,
 
     ``cpu_devices_per_process > 0`` forces the CPU backend with that many
     virtual devices per process and Gloo cross-process collectives — the
-    single-host multi-process test configuration.  On a real TPU slice
-    leave it 0: ``jax.distributed.initialize`` discovers the slice
-    topology itself and collectives ride ICI/DCN.
+    single-host multi-process test configuration.  On GPUs leave it 0:
+    every process then sees its local GPUs, ``jax.devices()`` spans all
+    processes' GPUs once the group is up, and XLA hands the collectives
+    to NCCL (NVLink within a host, the network between hosts).
+    ``coordinator_address`` is ``host:port`` of process 0 (e.g.
+    ``localhost:<free port>`` on one machine); nothing discovers a
+    cluster implicitly.
     """
     if cpu_devices_per_process > 0:
         jax.config.update("jax_platforms", "cpu")

@@ -1,15 +1,15 @@
 """Multi-device map sharding: the distributed reconstruction step.
 
 The reference is strictly single-GPU (SURVEY.md §2.10); this module is the
-pod-scale design the TPU build adds, expressed as SPMD ``shard_map`` over a
-``jax.sharding.Mesh``:
+multi-device design this engine adds, expressed as SPMD ``shard_map`` over a
+1-D ``jax.sharding.Mesh``:
 
 * **Map parallelism** (the SLAM analog of sequence parallelism): voxel
   blocks are partitioned by key hash — device ``d`` owns key ``k`` iff
   ``mix(k) % D == d``.  Every device holds a full local :class:`MapState`
   of 1/D capacity (its own open-addressing table + pool), so allocation,
   integration, compaction and GC are entirely local — zero communication.
-* **Frame data is replicated** (an RGB-D frame is ~1 MB; ICI broadcast is
+* **Frame data is replicated** (an RGB-D frame is ~1 MB; a broadcast is
   cheap compared to partitioning voxel work).
 * **Raycast**: every device splats its own blocks' surface voxels into a
   local z-buffer; a single ``lax.pmin`` over the mesh combines them into
@@ -21,7 +21,7 @@ pod-scale design the TPU build adds, expressed as SPMD ``shard_map`` over a
   reference reads partial sums back to the CPU every iteration,
   CUDABuildLinearSystem.cpp:45; here nothing leaves the devices).
 
-All collectives ride the mesh axis ("d"), i.e. ICI on a real slice.
+All collectives ride the mesh axis ("d"); on GPUs XLA hands them to NCCL.
 """
 
 from __future__ import annotations
@@ -174,8 +174,8 @@ def make_sharded_step(cfg: EngineConfig, mesh: Mesh,
         do_int = tr.valid | is_first
 
         # ---- allocate + integrate own partition ------------------------
-        # THE engine pipeline (alloc fixpoint -> compactify -> Pallas/XLA
-        # integrate -> GC every frame -> rehash) with the shard's capacity
+        # THE engine pipeline (alloc fixpoint -> compactify -> integrate
+        # -> GC every frame -> rehash) with the shard's capacity
         # and an ownership filter on the DDA candidates — not a fork.
         from .. import engine as engine_mod
 

@@ -2,7 +2,7 @@
 
 Composes the two scaling axes the framework adds over the reference:
 hash-partitioned map sharding over a device mesh (parallel/sharded.py)
-and HBM↔host-DRAM chunk tiering (streaming.py — the TPU re-derivation of
+and HBM↔host-DRAM chunk tiering (streaming.py — the re-derivation of
 CUDASceneRepChunkGrid). Each device sweeps and evicts only the blocks it
 OWNS (its hash partition), all devices in one shard_map program per half;
 the host files every device's evictions into ONE global chunk store, and

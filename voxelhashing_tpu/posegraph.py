@@ -20,6 +20,8 @@ import numpy as np
 from .config import CameraConfig, TrackerConfig
 from . import geometry as geom, tracking
 
+_HI = jax.lax.Precision.HIGHEST   # full-f32 products (no TF32 on a GPU)
+
 
 # ---------------------------------------------------------------------------
 # SE(3) helpers
@@ -46,7 +48,7 @@ def se3_exp(xi):
     wx = jnp.array([[0.0, -w[2], w[1]],
                     [w[2], 0.0, -w[0]],
                     [-w[1], w[0], 0.0]])
-    r = jnp.eye(3) + a * wx + b * (wx @ wx)
+    r = jnp.eye(3) + a * wx + b * jnp.matmul(wx, wx, precision=_HI)
     out = jnp.eye(4)
     out = out.at[:3, :3].set(r)
     out = out.at[:3, 3].set(xi[3:])
@@ -262,7 +264,8 @@ class PoseGraph:
             xi = xi_flat.reshape(k, 6)
             # pose 0 gauge-fixed
             xi = xi.at[0].set(0.0)
-            t = jnp.stack([poses[m] @ se3_exp(xi[m]) for m in range(k)])
+            t = jnp.stack([jnp.matmul(poses[m], se3_exp(xi[m]),
+                                      precision=_HI) for m in range(k)])
 
             def edge_res(i, j, z, w):
                 err = jnp.linalg.solve(z, jnp.linalg.solve(t[i], t[j]))
@@ -279,12 +282,13 @@ class PoseGraph:
             xi0 = jnp.zeros((k * 6,))
             r = residuals(xi0, poses)
             j = jac(xi0, poses)
-            a = j.T @ j + 1e-6 * jnp.eye(k * 6)
-            b = -j.T @ r
+            a = jnp.matmul(j.T, j, precision=_HI) + 1e-6 * jnp.eye(k * 6)
+            b = -jnp.matmul(j.T, r, precision=_HI)
             dx = jnp.linalg.solve(a, b).reshape(k, 6)
             dx = dx.at[0].set(0.0)
             new_poses = jnp.stack(
-                [poses[m] @ se3_exp(dx[m]) for m in range(k)])
+                [jnp.matmul(poses[m], se3_exp(dx[m]), precision=_HI)
+                 for m in range(k)])
             return new_poses, jnp.sum(r * r)
 
         poses = poses0
@@ -299,7 +303,7 @@ class PoseGraph:
         """Edge-sharded Gauss-Newton over a device mesh (SURVEY §7 phase
         5's distributed pose optimization: each device linearises its
         edge shard, the [6K,6K] normal equations are ``psum``-reduced
-        over ICI, and the solve runs replicated).
+        over the mesh, and the solve runs replicated).
 
         Note the reference/VoxelHashing problem has no landmark blocks —
         the graph is pose-pose only — so there is no Schur complement to
@@ -335,8 +339,8 @@ class PoseGraph:
         def edge_residual(xi_flat, poses, i, j, z, w):
             xi = xi_flat.reshape(k, 6)
             xi = xi.at[0].set(0.0)            # gauge fix
-            ti = poses[i] @ se3_exp(xi[i])
-            tj = poses[j] @ se3_exp(xi[j])
+            ti = jnp.matmul(poses[i], se3_exp(xi[i]), precision=_HI)
+            tj = jnp.matmul(poses[j], se3_exp(xi[j]), precision=_HI)
             err = jnp.linalg.solve(z, jnp.linalg.solve(ti, tj))
             return jnp.sqrt(w) * se3_log_residual(err)
 
@@ -349,7 +353,8 @@ class PoseGraph:
             def one(i, j, z, w):
                 r = edge_residual(xi0, poses, i, j, z, w)
                 jm = e_jac(xi0, poses, i, j, z, w)   # [6, k*6]
-                return jm.T @ jm, -jm.T @ r, jnp.sum(r * r)
+                return (jnp.matmul(jm.T, jm, precision=_HI),
+                        -jnp.matmul(jm.T, r, precision=_HI), jnp.sum(r * r))
 
             hs, bs, ls = jax.vmap(one)(ei_s, ej_s, zs_s, ws_s)
             h = jax.lax.psum(jnp.sum(hs, 0), "e")
@@ -369,7 +374,8 @@ class PoseGraph:
             dx = jnp.linalg.solve(a, b).reshape(k, 6)
             dx = dx.at[0].set(0.0)
             new_poses = jnp.stack(
-                [poses[m] @ se3_exp(dx[m]) for m in range(k)])
+                [jnp.matmul(poses[m], se3_exp(dx[m]), precision=_HI)
+                 for m in range(k)])
             return new_poses, loss
 
         poses = poses0

@@ -1,6 +1,6 @@
 """Surface prediction: per-pixel TSDF raycast over the block-sparse map.
 
-TPU-native re-derivation of ``CUDARayCastSDF`` (/root/reference/
+JAX re-derivation of ``CUDARayCastSDF`` (reference
 DepthSensingCUDA/Source/CUDARayCastSDF.cu:18-57 ``renderKernel``,
 ``RayCastSDFUtil.h:198-262`` ``traverseCoarseGridSimpleSampleAll``):
 
@@ -66,7 +66,7 @@ def trilinear_sample(state: MapState, p_world, cfg: MapConfig,
     invalid if any of the 8 corners is unallocated / zero-weight
     (RayCastSDFUtil.h:97-116).  Corner-major layout: corners are stacked on
     a LEADING axis ([8,K,...]) so every per-corner op runs on flat [K]
-    arrays (a trailing 8 axis would waste 15/16 of the TPU vector lanes).
+    arrays.
     """
     shape = p_world.shape[:-1]
     pw = p_world.reshape(-1, 3)
@@ -225,10 +225,9 @@ def render(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
     """Surface prediction from ``pose`` (CUDARayCastSDF::render,
     CUDARayCastSDF.cpp:38-72). Dispatches on ``rc.mode``:
 
-    * ``"splat"`` — the TPU-native renderer (:func:`render_splat`).
+    * ``"splat"`` — projective voxel splatting (:func:`render_splat`).
     * ``"march"`` — reference-style batched trilinear marching
-      (:func:`render_march`); bit-for-bit closer to the CUDA traversal but
-      gather-bound on TPU.
+      (:func:`render_march`); bit-for-bit closer to the CUDA traversal.
     """
     if rc.mode == "splat":
         return render_splat(state, pose, cam, cfg, rc,
@@ -241,7 +240,7 @@ def render(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
 def render_splat(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
                  rc: RaycastConfig, active_idx=None, active_mask=None,
                  with_color: bool = True) -> RaycastResult:
-    """TPU-native surface prediction by projective voxel splatting.
+    """Surface prediction by projective voxel splatting.
 
     Derivation: with the reference's *projective* TSDF (sdf = observed depth
     minus voxel camera z, CUDASceneRepHashSDF.cu:449), every near-surface
@@ -290,48 +289,34 @@ def render_splat(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
     sel_mask = jnp.arange(m2) < n_surf
     overflow = n_surf_total - n_surf
 
-    # On TPU the tracking path (no color) runs the scatter-free Pallas
-    # splat kernel (ops/pallas_splat.py); the XLA scatter path remains the
-    # portable reference and the color/visualization renderer.
-    use_pallas = jax.default_backend() == "tpu" and not with_color
-
-    def _zfun(sdf_r, wgt_r, sel_a, mask_r, n_rows):
-        if use_pallas:
-            from .ops.pallas_splat import splat_zbuf_pallas
-            zb, nclip = splat_zbuf_pallas(state, sdf_r, wgt_r, sel_a,
-                                          mask_r, view, cam, cfg,
-                                          n_rows=n_rows)
-            return zb, jnp.zeros((h * w,), jnp.uint32), nclip
-        zb, cb = _splat_zbuf(state, sdf_r, wgt_r, sel_a, mask_r, view, cam,
-                             cfg, with_color)
-        return zb, cb, jnp.int32(0)
+    def _zfun(sdf_r, wgt_r, sel_a, mask_r):
+        return _splat_zbuf(state, sdf_r, wgt_r, sel_a, mask_r, view, cam,
+                           cfg, with_color)
 
     def _culled(width):
-        # packed rows: voxel rows gathered only for the culled selection;
-        # the kernel skips grid steps past n_surf
+        # packed rows: voxel rows gathered only for the culled selection
         def fn(_):
             sel_a = active_idx[sel[:width]]
             return _zfun(state.sdf[sel_a], state.weight[sel_a], sel_a,
-                         sel_mask[:width], n_surf)
+                         sel_mask[:width])
         return fn
 
     def splat_full(_):
-        # overflow fallback: rows NOT packed (has_surf scattered) -> no
-        # skip; full-row gather only happens inside this (rare) branch
+        # overflow fallback: rows NOT packed (has_surf scattered); the
+        # full-row gather only happens inside this (rare) branch
         return _zfun(state.sdf[active_idx], state.weight[active_idx],
-                     active_idx, has_surf, None)
+                     active_idx, has_surf)
 
-    # Two-tier kernel width (the alloc-insert two-tier pattern): steady
-    # state at the bench operating point has n_surf ~8K <= m2/2, so the
-    # row gather + grid run half as wide; surface-dense views take the
-    # full m2 lane, true overflow falls back to the whole active list.
+    # Two-tier splat width (the alloc-insert two-tier pattern): a view
+    # whose surface blocks fit m2/2 gathers and projects half as many
+    # rows; surface-dense views take the full m2 width, true overflow
+    # falls back to the whole active list.
     m4 = max(m2 // 2, 8)
-    zbuf, colbuf, n_clipped = jax.lax.cond(
+    zbuf, colbuf = jax.lax.cond(
         overflow > 0, splat_full,
         lambda _: jax.lax.cond(n_surf <= m4, _culled(m4), _culled(m2),
                                operand=None),
         operand=None)
-    overflow = overflow + n_clipped
     depth = jnp.where(jnp.isfinite(zbuf), zbuf, jnp.nan).reshape(h, w)
     if with_color:
         color = (blockmap.unpack_rgb(colbuf) / 255.0).reshape(h, w, 3)
@@ -428,8 +413,7 @@ def _splat_zbuf(state: MapState, sdf, wgt, sel_active, row_mask, view,
     pix = jnp.where(ok, vi * w + ui, p)                       # p = dropped
 
     # --- Z-buffer scatter-min (+ color recovery when asked). -------------
-    # Each 13.6M-element scatter/gather pass costs ~70-100 ms on TPU, so
-    # the tracking path (with_color=False) does exactly ONE scatter; color
+    # The tracking path (with_color=False) does exactly ONE scatter; color
     # recovery (a zbuf-equality gather + masked color scatter) only runs
     # for visualization renders.
     inf = jnp.float32(jnp.inf)
@@ -456,7 +440,7 @@ def render_march(state: MapState, pose, cam: CameraConfig, cfg: MapConfig,
                  rc: RaycastConfig, active_idx=None, active_mask=None,
                  axis_name=None) -> RaycastResult:
     """Reference-style raycast: batched trilinear marching (see module
-    docstring). Gather-bound on TPU; the CPU-parity renderer.
+    docstring); the CPU-parity renderer.
 
     ``axis_name``: run distributed over a hash-partitioned map on a mesh
     axis — every trilinear fetch is a masked psum and the tile bounds are
@@ -531,7 +515,7 @@ def march_core(sample_soa, pose, cam: CameraConfig, t_min, t_max,
 
     # --- Batched march: evaluate ALL samples in one fused pass. ----------
     # Instead of a sequential per-step loop (the reference's while-march,
-    # RayCastSDFUtil.h:212-231 — and a dispatch-latency disaster on TPU),
+    # RayCastSDFUtil.h:212-231),
     # every ray evaluates S sample positions at once ([S, P] with P minor),
     # then the first + -> - crossing is extracted with a vectorised argmax.
     s_n = num_samples

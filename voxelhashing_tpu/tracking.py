@@ -1,6 +1,6 @@
 """Frame-to-model camera tracking: multi-resolution projective ICP.
 
-TPU-native re-derivation of ``CUDACameraTrackingMultiRes`` (/root/reference/
+JAX re-derivation of ``CUDACameraTrackingMultiRes`` (reference
 DepthSensingCUDA/Source/CUDACameraTrackingMultiRes.cpp:252-348) and its
 kernels:
 
@@ -36,6 +36,10 @@ from jax import lax
 from .config import CameraConfig, TrackerConfig
 from . import geometry as geom
 from .ops.image import resample_half
+
+# Every device-side f32 product here is pinned to full f32: at default
+# precision a GPU may run it in TF32 (10 mantissa bits).
+_HI = lax.Precision.HIGHEST
 
 
 class TrackingResult(NamedTuple):
@@ -100,22 +104,18 @@ def build_pyramid(points, normals, levels: int):
 def _soa(m):
     """[h,w,3] map -> flat per-component ([P],[P],[P]) SoA views.
 
-    Every hot op in the tracker runs on flat [P] arrays: a [...,3]-minor
-    layout wastes 125/128 of each TPU vreg's lanes (BASELINE.md layout
-    rules), and the per-iteration transform/reject/linearise chain is
-    ~40 elementwise ops.
+    Every hot op in the tracker runs on flat [P] arrays: the
+    per-iteration transform/reject/linearise chain is ~40 elementwise ops
+    over contiguous components instead of a [...,3]-minor layout.
     """
     f = m.reshape(-1)
-    # 1-D strided slices: ~30x faster on TPU than [P,3] column slices or a
-    # [P,3]->[3,P] transpose (both ~0.9 ms per map at 320x240; this ~30 us)
     return f[0::3], f[1::3], f[2::3]
 
 
 def _interleave_target(tgt_pts, tgt_nrm):
     """[h,w,3] model maps -> one [P,8] interleaved row table
-    (qx,qy,qz,nqx,nqy,nqz,0,0): TPU gather cost scales with the INDEX
-    count, not the slice width, so one 8-wide row gather fetches point and
-    normal together (3.05 ms -> 0.56 ms per associate at 320x240)."""
+    (qx,qy,qz,nqx,nqy,nqz,0,0): one 8-wide row gather per pixel fetches
+    point and normal together instead of six scalar gathers."""
     p = tgt_pts.reshape(-1, 3)
     n = tgt_nrm.reshape(-1, 3)
     return jnp.concatenate(
@@ -231,6 +231,7 @@ def _planarity(in_soa, wgt, thres: float, reduce_sys):
                     jnp.where(use, in_soa[4], zero),
                     jnp.where(use, in_soa[5], zero)], axis=0)   # [3,P]
     s = lax.dot_general(nr * wgt[None, :], nr, (((1,), (1,)), ((), ())),
+                        precision=_HI,
                         preferred_element_type=jnp.float32)     # [3,3]
     (s,) = reduce_sys((s,))
     tr = s[0, 0] + s[1, 1] + s[2, 2]
@@ -239,7 +240,8 @@ def _planarity(in_soa, wgt, thres: float, reduce_sys):
     return (i2 < thres) & (tr > 0.0), i2
 
 
-def _linearize(delta, in_soa, q, nq, wgt, ok, mean, inv_std):
+def _linearize(delta, in_soa, q, nq, wgt, ok, mean, inv_std,
+               precision=_HI):
     """Point-to-plane normal equations about the current delta against
     FIXED correspondences (the applyBL re-build inside the inner loop,
     CUDABuildLinearSystem.cu:71-114 / CUDACameraTrackingMultiRes.cpp:217-246),
@@ -250,9 +252,10 @@ def _linearize(delta, in_soa, q, nq, wgt, ok, mean, inv_std):
     Linearisation: residual e = n_q . (pc - qc) with pc = white(delta(p));
     about identity pc' = pc + w x pc + t, so the Jacobian row is
     j = [pc x n_q | n_q] and the rhs accumulates -j * e.  The reduction is
-    phrased as J_w [8,P] @ J^T [P,8] so the 36 accumulators ride the MXU
-    with P on the minor axis (the reference's shared-memory tree reduction,
-    CUDABuildLinearSystem.cu:92-181, became one matmul).
+    phrased as J_w [8,P] @ J^T [P,8] with P on the minor axis (the
+    reference's shared-memory tree reduction, CUDABuildLinearSystem.cu:
+    92-181, became one matmul). ``precision`` defaults to full f32
+    (``_HI``).
     """
     ipx, ipy, ipz = in_soa[0], in_soa[1], in_soa[2]
     r, t = delta[:3, :3], delta[:3, 3]
@@ -289,8 +292,8 @@ def _linearize(delta, in_soa, q, nq, wgt, ok, mean, inv_std):
     # One [8,P]@[P,8] contraction yields A (rows 0-5), b (row 6), sum_res
     # (m[6,6] = sum w e^2) and sum_w (m[7,7] = sum w * 1 * 1) together.
     m = lax.dot_general(jw, jrows, (((1,), (1,)), ((), ())),
-                        preferred_element_type=jnp.float32,
-                        )   # [8,8]
+                        precision=precision,
+                        preferred_element_type=jnp.float32)   # [8,8]
     a = m[:6, :6]
     b = -m[6, :6]
     sum_res = m[6, 6]
@@ -304,7 +307,7 @@ def _pose_from_x_whitened(x, mean, inv_std):
     ``t = x_t/inv_std + mean - R.mean`` (delinearizeTransformation,
     CUDACameraTrackingMultiRes.cpp:194-211 with meanStDev*t+mean-R*mean)."""
     r = geom.euler_zyx_to_matrix(x[:3])
-    t = x[3:6] / inv_std + mean - r @ mean
+    t = x[3:6] / inv_std + mean - jnp.matmul(r, mean, precision=_HI)
     m = jnp.eye(4, dtype=jnp.float32)
     m = m.at[:3, :3].set(r).at[:3, 3].set(t)
     return m
@@ -342,7 +345,8 @@ def _solve6(a, b, cond_thres: float):
         jnp.isfinite(a))
     s_min = jnp.maximum(s[0] / cond_thres, 1e-10)
     s_inv = jnp.where(s > s_min, 1.0 / s, 0.0)
-    x = vt.T @ (s_inv * (u.T @ b))
+    x = jnp.matmul(vt.T, s_inv * jnp.matmul(u.T, b, precision=_HI),
+                   precision=_HI)
     x = jnp.where(degenerate, jnp.zeros_like(x), x)
     return x, cond, degenerate
 
@@ -379,7 +383,7 @@ def _build_system_color(delta, in_pts, in_int, tgt_int, tgt_gx, tgt_gy,
     if inv_std is None:
         inv_std = jnp.float32(1.0)
     r = delta[:3, :3]
-    p = in_pts @ r.T + delta[:3, 3]
+    p = jnp.matmul(in_pts, r.T, precision=_HI) + delta[:3, 3]
 
     # Bilinear intensity sample at the CONTINUOUS projection (the
     # reference's getValueNearestNeighbour->bilinear path in ICPUtil.h):
@@ -431,7 +435,7 @@ def _build_system_color(delta, in_pts, in_int, tgt_int, tgt_gx, tgt_gy,
     j = jnp.where(ok[..., None], j, 0.0)
     e = jnp.where(ok, e, 0.0)
     jw = j * wgt[..., None]
-    a_mat = jnp.einsum("...i,...j->ij", jw, j)
+    a_mat = jnp.einsum("...i,...j->ij", jw, j, precision=_HI)
     b = -jnp.sum(jw * e[..., None], axis=tuple(range(e.ndim)))
     return a_mat, b, jnp.sum(wgt * e * e), jnp.sum(wgt), \
         jnp.sum(ok.astype(jnp.int32))
@@ -578,7 +582,8 @@ def track(input_points, input_normals, model_points, model_normals,
                 lost |= bad & ~done
                 use = ~done & ~bad
                 delta = jnp.where(
-                    use, _pose_from_x_whitened(x, mean, inv_std) @ delta,
+                    use, jnp.matmul(_pose_from_x_whitened(x, mean, inv_std),
+                                    delta, precision=_HI),
                     delta)
                 residual = jnp.where(use | done, mean_res, residual)
                 corr = jnp.where(use | done, count, corr)
@@ -618,7 +623,7 @@ def track(input_points, input_normals, model_points, model_normals,
         curves[level] = jnp.stack(
             curve + [jnp.float32(jnp.nan)] * (max_iters - len(curve)))
 
-    new_pose = last_pose @ delta
+    new_pose = jnp.matmul(last_pose, delta, precision=_HI)
     valid = ~lost & jnp.all(jnp.isfinite(new_pose))
     pose_out = jnp.where(valid, new_pose, last_pose)
     return TrackingResult(pose=pose_out, valid=valid, residual=residual,
